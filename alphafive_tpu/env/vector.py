@@ -1,10 +1,10 @@
 """Vectorized, jit-friendly Gomoku/Renju engine.
 
-TPU-first redesign of the reference's scalar board class (SURVEY.md §1 L1):
-``E`` boards step in lockstep as flat ``int8[E, A]`` tensors under ``jit`` /
-``vmap`` (BASELINE.json north star: "vectorized Gomoku engine stepping
-thousands of boards in lockstep under jit ... vectorized five-in-a-row win
-detection via convolutional line scans").
+Accelerator-first redesign of the reference's scalar board class
+(SURVEY.md §1 L1): ``E`` boards step in lockstep as flat ``int8[E, A]``
+tensors under ``jit`` / ``vmap`` (BASELINE.json north star: "vectorized
+Gomoku engine stepping thousands of boards in lockstep under jit ...
+vectorized five-in-a-row win detection via convolutional line scans").
 
 Win detection is a *local* line scan: only the 4 lines through the stone just
 placed can complete a run, so each step gathers a fixed 11-cell window per
@@ -28,16 +28,16 @@ from typing import Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from alphafive_tpu.config import EnvConfig, FREESTYLE, RENJU, RENJU_LITE
+from alphafive_tpu.utils import pytree
 
 WINDOW = 11  # offsets -5..5 through the placed stone
 HALF = WINDOW // 2
 _DIRECTIONS = ((0, 1), (1, 0), (1, 1), (1, -1))
 
 
-@struct.dataclass
+@pytree.dataclass
 class EnvState:
     """Batched game state. All arrays lead with the env axis E."""
 
@@ -53,11 +53,11 @@ class EnvState:
 def line_onehot_table(size: int) -> np.ndarray:
     """int8[A, 4*W, A] one-hot rows: row (a, k) selects cell idx[a, k].
 
-    Lets the line-window gather run as one scalar-row gather (the fast TPU
-    gather form) plus an int8 matmul on the MXU, instead of a 44-element
-    take_along_axis per board, which lowers to the slow generic-gather
-    path (round-1 finding; measured ~1 ms per search pass at the
-    [E·leaf_batch, 44] expansion shape). ~2.2 MB at 15×15, built once."""
+    Lets the line-window gather run as one scalar-row gather plus an int8
+    matmul instead of a 44-element take_along_axis per board, which
+    lowered to a slow generic-gather path on the accelerator this was
+    first tuned for (round-1 finding, at the [E·leaf_batch, 44] expansion
+    shape). ~2.2 MB at 15×15, built once."""
     idx, _ = line_tables(size)
     a = size * size
     flat = idx.reshape(a, -1)                      # [A, 4*W]
@@ -106,7 +106,7 @@ def _line_cells(cfg: EnvConfig, board: jnp.ndarray, action: jnp.ndarray):
 
     The cell pick runs as onehot-slab row gather + int8 matmul (see
     line_onehot_table) — exact integer arithmetic, bit-identical to a
-    take_along_axis gather and much faster on TPU."""
+    take_along_axis gather."""
     e = board.shape[0]
     ok = jnp.asarray(line_tables(cfg.board_size)[1])[action]   # [E, 4, W]
     slab = jnp.asarray(line_onehot_table(cfg.board_size))[action]
@@ -119,8 +119,8 @@ def _runs_from_cells(cells: jnp.ndarray, ok: jnp.ndarray,
                      player: jnp.ndarray) -> jnp.ndarray:
     own = (cells == player[:, None, None].astype(jnp.int8)) & ok
     # consecutive own-stones on each side of the center: unrolled AND-chain
-    # (a 5-step cumprod lowered to reduce-window ops that measured ~1 ms
-    # per search pass at [E·lb, 4, W] shapes — plain elementwise ops fuse)
+    # (a 5-step cumprod lowered to reduce-window ops at [E·lb, 4, W]
+    # shapes where this was first tuned — plain elementwise ops fuse)
     total = jnp.zeros(own.shape[:-1], jnp.int32)
     acc = jnp.ones(own.shape[:-1], bool)
     for k in range(1, HALF + 1):         # offsets +1..+5
@@ -249,8 +249,8 @@ def features(cfg: EnvConfig, board: jnp.ndarray, to_play: jnp.ndarray,
              last_move: jnp.ndarray) -> jnp.ndarray:
     """float32[E, S, S, 4] NHWC planes: own, opp, last-move, black-to-play.
 
-    Same encoding as scalar.features (SURVEY.md §2 "Board engine"). NHWC is
-    the TPU-native conv layout. Takes raw fields (not EnvState) so the replay
+    Same encoding as scalar.features (SURVEY.md §2 "Board engine"), in the
+    net's NHWC conv layout. Takes raw fields (not EnvState) so the replay
     buffer can re-encode stored positions at sample time.
     """
     s = cfg.board_size

@@ -1,9 +1,8 @@
 """Gumbel root search with sequential halving (Danihelka et al. 2022,
 "Policy Improvement by Planning with Gumbel").
 
-Why it exists here: the north-star analysis (docs/NORTH_STAR.md §3) shows
-the ≥1M-aggregate-env-steps/s target is physically reachable only at
-average budgets ≤~16 simulations per move — exactly the regime where the
+Why it exists here: the cheapest self-play data engine runs at average
+budgets of ≤~16 simulations per move — exactly the regime where the
 classic AlphaZero root (Dirichlet noise + visit-count targets, the
 reference family's scheme, SURVEY.md §2 "MCTS player") degrades: with a
 handful of sims the visit distribution is mostly noise and the π target
@@ -23,7 +22,7 @@ carries almost no policy improvement. Gumbel search is the published fix:
 transform; completed Q fills unvisited actions with the mixed value
 estimate v_mix.
 
-TPU-native design: the halving survivors ARE the leaf-parallel lanes.
+Batched design: the halving survivors ARE the leaf-parallel lanes.
 Each pass forces every lane to a DISTINCT root child (search._select_one's
 `root_action` hook) and descends PUCT below it, so all survivors advance
 in one batched env.step + one net forward per pass and — because distinct

@@ -1,6 +1,6 @@
 """Batched on-device MCTS over fixed-size tree arrays.
 
-TPU-first replacement for the reference's recursive Python MCTS
+Accelerator-first replacement for the reference's recursive Python MCTS
 (SURVEY.md §3.2, BASELINE.json north star: "fully on-device batched MCTS in
 JAX — fixed-size tree arrays per env, vmapped PUCT selection/expansion/backup,
 Dirichlet root noise"). Design:
@@ -38,18 +38,18 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from alphafive_tpu.config import EnvConfig, MCTSConfig
 from alphafive_tpu.env import vector
 from alphafive_tpu.env.vector import EnvState
+from alphafive_tpu.utils import pytree
 
 # evaluator: (board int8[E,A], to_play int8[E], last int32[E], key)
 #            -> (logits f32[E,A], value f32[E])
 Evaluator = Callable[..., Tuple[jnp.ndarray, jnp.ndarray]]
 
 
-@struct.dataclass
+@pytree.dataclass
 class Tree:
     # edge stats [E, NN, A]
     n: jnp.ndarray        # uint16 visit counts (<= sims+1 by construction)
@@ -95,9 +95,9 @@ def dirichlet_noise(key: jax.Array, alpha: float,
 def _tree_init(env_cfg: EnvConfig, num_envs: int, num_nodes: int,
                prior_dtype, value_dtype=jnp.float32) -> Tree:
     e, nn, a = num_envs, num_nodes, env_cfg.num_actions
-    # dtype choices are HBM-bandwidth choices: the select loop makes XLA
+    # dtype choices are memory-bandwidth choices: the select loop makes XLA
     # relayout every tree array once per simulation, so halving n/child
-    # (u16/i16) directly cuts the dominant memory traffic (~25% end-to-end).
+    # (u16/i16) directly cuts the dominant memory traffic.
     assert nn <= 32767, "int16 child pointers cap the tree at 32767 nodes"
     return Tree(
         n=jnp.zeros((e, nn, a), jnp.uint16),
@@ -142,7 +142,7 @@ def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
     visited AT THE ROOT, steering later lanes toward different subtrees.
     Root-only is a deliberate trade: scattering virtual visits into the
     full [NN, A] visit array costs a full-array copy + relayout per
-    descent (the round-1 measured bottleneck, ~40% of pass time), while
+    descent (the bottleneck where this was first tuned), while
     the [A] root row is a register-cheap carry. Lanes that still converge
     below the root merely revisit the same leaf (handled by the duplicate
     dedup at expansion — a small budget overlap, not an error).
@@ -152,13 +152,12 @@ def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
 
     Perf note: under vmap, XLA picks an env-minor layout for the tree arrays
     inside this while_loop and pays one transpose per array per simulation.
-    That measured FASTER end-to-end (191 vs 108 env-steps/s at 256 envs,
-    15×15/400 sims) than a batch-level while_loop with standard-layout row
-    gathers, because TPU gathers/scatters carry a large fixed cost per op
-    and the E-minor gathers inside the loop are near-free. Every array this
-    loop touches is relaid-out once per simulation, so the hot-loop set is
-    kept minimal (u16 n, i16 child, prior_dtype p, f32 w; boards excluded
-    via the sign trick).
+    On the accelerator this was first tuned for that beat a batch-level
+    while_loop with standard-layout row gathers, whose gathers/scatters
+    carried a large fixed cost per op; it is unmeasured on the GPU. Every
+    array this loop touches is relaid-out once per simulation, so the
+    hot-loop set is kept minimal (u16 n, i16 child, prior_dtype p, f32 w;
+    boards excluded via the sign trick).
 
     Returns (leaf_parent, action, depth, path_nodes[D], path_actions[D]).
     A lane stops at the first missing child (to expand), at a terminal node,
@@ -166,8 +165,8 @@ def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
     mctx-style truncation). The path records every traversed edge INCLUDING
     the stopping edge when expanding. Unused path slots stay (0, 0) and
     carry zero-valued updates in the backup scatter (a plain scatter-add
-    with in-bounds pads measured ~2x faster than OOB-dropped or
-    sorted/unique variants on TPU).
+    with in-bounds pads; OOB-dropped and sorted/unique variants measured
+    slower where this was first tuned).
     """
     d = depth_limit
 
@@ -259,23 +258,10 @@ def run_mcts(
     callers reset or mask them).
     """
     if mcts_cfg.branch_cap is not None:
-        assert mcts_cfg.select_impl != "pallas", (
-            "branch_cap and select_impl='pallas' are mutually exclusive")
         from alphafive_tpu.mcts.search_capped import run_mcts_capped
         return run_mcts_capped(env_cfg, mcts_cfg, evaluate, state, key,
                                num_simulations=num_simulations,
                                add_noise=add_noise)
-    if mcts_cfg.select_impl == "pallas":
-        assert mcts_cfg.leaf_batch <= 1, (
-            "select_impl='pallas' implements sequential descent only; "
-            "leaf_batch>1 requires the default 'xla' path")
-        from alphafive_tpu.mcts.search_packed import run_mcts_packed
-        # the Mosaic kernel only compiles on real TPUs; every other backend
-        # (cpu, gpu, ...) runs it in interpret mode (ADVICE.md round-1)
-        return run_mcts_packed(
-            env_cfg, mcts_cfg, evaluate, state, key,
-            num_simulations=num_simulations, add_noise=add_noise,
-            interpret=jax.default_backend() != "tpu")
     sims = int(num_simulations or mcts_cfg.num_simulations)
     e, a = state.board.shape
     nn = sims + 1
@@ -350,7 +336,7 @@ def run_mcts(
         # their scatter→gather relayout happens once per pass (the round-1
         # measured bottleneck). "path" mode additionally scatters +1 onto
         # every traversed edge of the visit array (one [E,NN,A] relayout
-        # per descent — ~20% slower, but deep descents keep diverging:
+        # per descent — slower, but deep descents keep diverging:
         # markedly stronger at equal budget, docs/PERFORMANCE.md).
         path_virtual = mcts_cfg.virtual_mode == "path" and lb > 1
 

@@ -32,7 +32,6 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from alphafive_tpu.config import EnvConfig, MCTSConfig
 from alphafive_tpu.env import vector
@@ -41,8 +40,13 @@ from alphafive_tpu.mcts.search import (Evaluator, SearchResult,
                                        _puct_scores_n, dirichlet_noise,
                                        masked_softmax)
 
+# float32 matrix products that carry exact integers (packed path ids,
+# fixed-point values) must not run at reduced precision (TF32 on GPUs)
+_EXACT = jax.lax.Precision.HIGHEST
+from alphafive_tpu.utils import pytree
 
-@struct.dataclass
+
+@pytree.dataclass
 class CappedTree:
     # edge stats [E, NN, C] (slot-indexed)
     n: jnp.ndarray         # visit counts: u16, OR s32 packed
@@ -69,17 +73,17 @@ def _top_c(p_signed: jnp.ndarray, c: int, prior_dtype, exact: bool = False):
     softmax underflow must stay selectable-by-Q when slots are free, as
     in the uncapped search); pad slots keep -1.
 
-    When the cap actually binds (c < A) the TPU-native `approx_max_k`
-    (recall ≈ 0.98) replaces the sort-based exact top_k for INTERIOR
-    nodes: occasionally swapping the ~64th-best prior for the ~66th is
-    noise next to the cap itself. Note the recall loss can also drop a
-    LEGAL move in favour of a -1 pad even when free slots remain (a
-    low-prior legal move displaced from the approximate top-c): at an
-    interior node that move becomes unreachable there, which is the same
-    class of error as the cap itself. The ROOT is different — a dropped
-    root move gets zero π mass in the training targets — so callers pass
-    exact=True for the root's single top-c (one exact top_k per search,
-    off the hot path). c == A (the parity/equality tests) stays exact."""
+    When the cap actually binds (c < A), INTERIOR nodes ask for
+    `approx_max_k` (recall target 0.98). On the GPU and the CPU, XLA
+    lowers it to an exact top-k, so there the interior top-c is exact.
+    Where it is approximate, it may swap the ~64th-best prior for the
+    ~66th (noise next to the cap itself) or drop a low-prior LEGAL move
+    in favour of a -1 pad: at an interior node that move becomes
+    unreachable, the same class of error as the cap itself. The ROOT is
+    different — a dropped root move gets zero π mass in the training
+    targets — so callers pass exact=True for the root's single top-c (one
+    exact top_k per search, off the hot path). c == A (the
+    parity/equality tests) stays exact."""
     if c < p_signed.shape[-1] and not exact:
         vals, idx = jax.lax.approx_max_k(p_signed.astype(jnp.float32), c,
                                          recall_target=0.98)
@@ -194,9 +198,10 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done,
         oh_d = (jnp.clip(k - lanes, 0, d - 1)[:, None]
                 == darange[None, :]).astype(jnp.float32)       # [LBj,D]
         # ent[e,i,j] = ppas[e,i,k-j] via einsum (f32 exact: entries
-        # < 2^24); one tiny matmul instead of a 4-D gather
+        # < 2^24, at HIGHEST precision — a TF32 or bf16 matmul would round
+        # the packed ids); one tiny matmul instead of a 4-D gather
         ent = jnp.einsum("eid,jd->eij", ppas.astype(jnp.float32),
-                         oh_d).astype(jnp.int32)               # [E,LBi,LBj]
+                         oh_d, precision=_EXACT).astype(jnp.int32)
         match = (tri[None]
                  & (depth[:, :, None] > depth[:, None, :])
                  & ((ent >> 8) == cur[:, None, :]))            # [E,LBi,LBj]
@@ -210,9 +215,9 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done,
             # entry/value of pending lane m at depth k - j (same static
             # one-hot as above; f32-exact: entries < 2^23, values < 2^15)
             entp = jnp.einsum("emd,jd->emj", pp.astype(jnp.float32),
-                              oh_d).astype(jnp.int32)      # [E,LP,LBj]
+                              oh_d, precision=_EXACT).astype(jnp.int32)
             wentp = jnp.einsum("emd,jd->emj", pw.astype(jnp.float32),
-                               oh_d)                       # [E,LP,LBj]
+                               oh_d, precision=_EXACT)     # [E,LP,LBj]
             validp = ((jnp.clip(k - lanes, 0, d - 1)[None, None, :]
                        < pdep[:, :, None])
                       & ((entp >> 8) == cur[:, None, :]))  # [E,LP,LBj]
@@ -527,8 +532,8 @@ def run_mcts_capped(
     # count, the path buffers, and the virtual-visit lookup all scale
     # with that cap, and the round-3 profile showed the backup scatter
     # (padded to max_depth, ~88% zero-delta indices at typical depths)
-    # was the single largest non-matmul op of the pass (1.16 ms of a
-    # 5.5 ms pass). Stages double the cap from 8 up to min(max_depth,
+    # was the single largest non-matmul op of the pass where this was
+    # first tuned. Stages double the cap from 8 up to min(max_depth,
     # passes); semantics are identical because the tighter caps are
     # unreachable by construction.
     lo = 0

@@ -1,5 +1,6 @@
 """Policy-value networks and evaluators (SURVEY.md §1 L3)."""
 
-from alphafive_tpu.models.resnet import PolicyValueNet, init_variables
+from alphafive_tpu.models.resnet import (apply, apply_eval, apply_train,
+                                         init_variables)
 
-__all__ = ["PolicyValueNet", "init_variables"]
+__all__ = ["apply", "apply_eval", "apply_train", "init_variables"]

@@ -17,24 +17,18 @@ import jax.numpy as jnp
 from alphafive_tpu.config import EnvConfig, NetConfig
 from alphafive_tpu.env import vector
 from alphafive_tpu.env.vector import EnvState
-from alphafive_tpu.models.resnet import PolicyValueNet, apply_eval
+from alphafive_tpu.models.resnet import apply_eval
 
 
 def net_evaluator(env_cfg: EnvConfig, net_cfg: NetConfig, params,
                   batch_stats) -> Callable:
     """Policy-value-net leaf evaluator (batched: one forward per sim for all
     envs — vs the reference's batch-1 session.run, SURVEY.md §3.1)."""
-    model = PolicyValueNet(env_cfg, net_cfg)
 
     def evaluate(board, to_play, last, key):
         del key
         feats = vector.features(env_cfg, board, to_play, last)
-        if net_cfg.use_pallas:
-            from alphafive_tpu.models.resnet import apply_eval_fused
-            return apply_eval_fused(env_cfg, net_cfg, params, batch_stats,
-                                    feats)
-        logits, value = apply_eval(model, params, batch_stats, feats)
-        return logits, value
+        return apply_eval(net_cfg, params, batch_stats, feats)
 
     return evaluate
 

@@ -1,22 +1,24 @@
 """Multi-host initialization and helpers (SURVEY.md §5.8, BASELINE.json:10).
 
 The reference has no distributed execution (SURVEY.md §2 parallelism table).
-The TPU-native multi-host story is exactly the single-host one: the SPMD
+The multi-host story here is exactly the single-host one: the SPMD
 iteration in parallel/mesh.py is already written against a global mesh, so
-scaling to a v5p-16 pod slice is
+scaling to several GPU hosts is
 
     1. every host runs the same program,
-    2. ``jax.distributed.initialize`` wires the processes together
-       (auto-detected coordinator on TPU pods; explicit flags elsewhere),
+    2. ``jax.distributed.initialize`` wires the processes together; nothing
+       on a GPU host announces a cluster, so the coordinator address
+       (process 0's ``host:port``), the process count and each process's
+       id are passed explicitly (``cli train --multihost --coordinator
+       ... --num-processes ... --process-id ...``),
     3. the mesh is built over ``jax.devices()`` (now the GLOBAL device list),
     4. host-local data (nothing in this framework — envs live on device)
-       needs no resharding; checkpoints and logging are process-0-only.
+       needs no resharding; checkpoint shards are written by every process,
+       logs and checkpoint metadata by process 0 only.
 
-The learner's gradient ``pmean`` compiles to an all-reduce over ICI within
-the slice. The driver validates the sharded program on a virtual 8-device
-CPU mesh (``__graft_entry__.dryrun_multichip``); true multi-host runs are
-validated by the scaling benchmark itself (SURVEY.md §4 "Distributed
-without a cluster").
+The learner's gradient ``pmean`` compiles to an all-reduce across devices
+(NCCL on GPUs). tests/test_distributed.py runs a real 2-process cluster on
+CPU (SURVEY.md §4 "Distributed without a cluster").
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Bring up JAX's distributed runtime. No-op for single-process runs.
 
-    On TPU pods all three arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU clusters or tests.
+    Pass all three for a multi-process run: no GPU or CPU cluster
+    announces its coordinator.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -2,13 +2,13 @@
 
 The reference uses a host-side `collections.deque` of pre-augmented
 (state, π, z) tuples with `random.sample` minibatches (SURVEY.md §2 "Replay
-buffer"). TPU-first redesign:
+buffer"). Redesign:
 
-  * The buffer lives in HBM as fixed-capacity arrays inside the jitted
+  * The buffer lives in device memory as fixed-capacity arrays inside the jitted
     actor-learner program — no host round-trips (SURVEY.md §7 hard part 3).
   * Entries store the *compact* position (int8 flat board, to-play, last-move,
     bf16 π, int8 z, validity) — features are re-encoded and the random
-    dihedral symmetry applied at sample time (utils/symmetry.py), 8× less HBM
+    dihedral symmetry applied at sample time (utils/symmetry.py), 8× less memory
     than the reference's pre-augmented tuples.
   * Writes are a wrap-around scatter at a running pointer; sampling is a
     uniform gather over the filled prefix. Capacity is sharded over the data
@@ -25,13 +25,13 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from alphafive_tpu.config import EnvConfig, ReplayConfig
 from alphafive_tpu.utils import symmetry
+from alphafive_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class ReplayBuffer:
     board: jnp.ndarray    # int8[C, A]
     to_play: jnp.ndarray  # int8[C]

@@ -2,7 +2,7 @@
 
 The reference plays one game at a time in a Python loop, recording
 (state, π, player) and backfilling z from the winner at game end
-(SURVEY.md §3.1 `start_self_play`). TPU-first redesign (SURVEY.md §7 hard
+(SURVEY.md §3.1 `start_self_play`). Redesign (SURVEY.md §7 hard
 part 2): E envs play in lockstep under one `lax.scan` over plies with
 masked auto-reset; the winner backfill is a reverse scan over the recorded
 chunk, so the whole actor is shape-static and jit-compiled.
@@ -39,12 +39,12 @@ from typing import Callable, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from alphafive_tpu.config import EnvConfig, MCTSConfig
 from alphafive_tpu.env import vector
 from alphafive_tpu.env.vector import EnvState
 from alphafive_tpu.mcts import gumbel, search
+from alphafive_tpu.utils import pytree
 
 
 def prune_forced_visits(visits: jnp.ndarray, priors: jnp.ndarray,
@@ -64,7 +64,7 @@ def prune_forced_visits(visits: jnp.ndarray, priors: jnp.ndarray,
     return jnp.where(is_best, visits, pruned)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Trajectory:
     """Flattened chunk of T×E positions (leading axis T*E)."""
 
@@ -77,7 +77,7 @@ class Trajectory:
     pi_valid: jnp.ndarray  # bool[M] (full-budget search — π is a target)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Recordings:
     """Raw per-ply recordings of a chunk, BEFORE z resolution ([T, E]).
 

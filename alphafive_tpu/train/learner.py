@@ -21,8 +21,8 @@ with Adam. Differences, by design:
     gradient. The `sgd` option keeps the explicit L2 loss term (there the
     reference semantics are safe: no gradient normalization).
   * Gradients are averaged over the `data` mesh axis with `psum` when run
-    under shard_map (parallel/mesh.py) — the TPU-native replacement for the
-    reference's single-GPU update (SURVEY.md §2 parallelism table).
+    under shard_map (parallel/mesh.py) — the data-parallel replacement for
+    the reference's single-GPU update (SURVEY.md §2 parallelism table).
 
 Also computes KL(π_mcts ‖ p_net) — the quantity the reference uses for its
 adaptive-lr early stopping — as a logged metric.
@@ -35,13 +35,13 @@ from typing import Any, Dict, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 
 from alphafive_tpu.config import EnvConfig, NetConfig, TrainConfig
-from alphafive_tpu.models.resnet import PolicyValueNet, apply_train
+from alphafive_tpu.models.resnet import apply_train, init_variables
+from alphafive_tpu.utils import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class TrainState:
     params: Any
     batch_stats: Any
@@ -80,7 +80,6 @@ def make_optimizer(cfg: TrainConfig) -> optax.GradientTransformation:
 
 def init_train_state(env_cfg: EnvConfig, net_cfg: NetConfig,
                      train_cfg: TrainConfig, key: jax.Array) -> TrainState:
-    from alphafive_tpu.models.resnet import init_variables
     variables = init_variables(env_cfg, net_cfg, key)
     params = variables["params"]
     batch_stats = variables.get("batch_stats", {})
@@ -99,11 +98,11 @@ def _l2_of_kernels(params) -> jnp.ndarray:
     return acc
 
 
-def loss_fn(params, batch_stats, model: PolicyValueNet, batch,
+def loss_fn(params, batch_stats, net_cfg: NetConfig, batch,
             train_cfg: TrainConfig):
     feats, pi, z, z_valid, pi_valid = (batch if len(batch) == 5
                                        else (*batch, None))
-    (logits, value), new_bs = apply_train(model, params, batch_stats, feats)
+    (logits, value), new_bs = apply_train(net_cfg, params, batch_stats, feats)
     logp = jax.nn.log_softmax(logits, axis=-1)
     ce = jnp.sum(pi * logp, axis=-1)
     if pi_valid is None:
@@ -139,14 +138,13 @@ def loss_fn(params, batch_stats, model: PolicyValueNet, batch,
     return loss, (new_bs, aux)
 
 
-def train_step(env_cfg: EnvConfig, net_cfg: NetConfig,
-               train_cfg: TrainConfig, ts: TrainState, batch,
+def train_step(net_cfg: NetConfig, train_cfg: TrainConfig,
+               ts: TrainState, batch,
                axis_name: Optional[str] = None
                ) -> Tuple[TrainState, Dict[str, jnp.ndarray]]:
     """One SGD step. Under shard_map, pass axis_name to pmean grads/stats."""
-    model = PolicyValueNet(env_cfg, net_cfg)
     grad_fn = jax.value_and_grad(loss_fn, has_aux=True)
-    (_, (new_bs, aux)), grads = grad_fn(ts.params, ts.batch_stats, model,
+    (_, (new_bs, aux)), grads = grad_fn(ts.params, ts.batch_stats, net_cfg,
                                         batch, train_cfg)
     if axis_name is not None:
         grads = jax.lax.pmean(grads, axis_name)

@@ -2,10 +2,10 @@
 
 The reference augments each (state, π) with 4 rotations × mirror before
 pushing to the buffer (SURVEY.md §2 "Replay buffer", `get_equi_data`).
-TPU-first change: augmentation is a *sample-time* jit transform — one gather
+The change here: augmentation is a *sample-time* jit transform — one gather
 with a precomputed permutation per symmetry element, applied to the flat
 board and π identically (both are fields over cells), so the buffer stores
-each position once (8× less HBM) and the learner sees a fresh random
+each position once (8× less memory) and the learner sees a fresh random
 symmetry every epoch.
 
 Tables are built host-side once per board size:

@@ -1,6 +1,6 @@
-"""Ad-hoc perf experiment matrix for the MCTS hot path (run on the TPU).
+"""Ad-hoc perf experiment matrix for the MCTS hot path (run on the GPU).
 
-Usage: python benchmarks/experiments.py [quick|full]
+Usage: python benchmarks/experiments.py
 Prints one line per variant. Not part of the test suite.
 """
 
@@ -25,10 +25,6 @@ def variant(cfg, **kw):
     if blocks is not None:
         cfg = dataclasses.replace(
             cfg, net=dataclasses.replace(cfg.net, blocks=blocks))
-    pallas = kw.pop("use_pallas", None)
-    if pallas is not None:
-        cfg = dataclasses.replace(
-            cfg, net=dataclasses.replace(cfg.net, use_pallas=pallas))
     if kw:
         cfg = dataclasses.replace(
             cfg, mcts=dataclasses.replace(cfg.mcts, **kw))
@@ -36,7 +32,6 @@ def variant(cfg, **kw):
 
 
 def main():
-    mode = sys.argv[1] if len(sys.argv) > 1 else "quick"
     base = get_preset("chip_15x15")
     variants = [
         ("base-256env-d64", base),
@@ -47,12 +42,6 @@ def main():
         ("sims100", variant(base, num_simulations=100)),
         ("prior-bf16", variant(base, prior_dtype="bfloat16")),
     ]
-    if mode == "full":
-        variants += [
-            ("pallas", variant(base, use_pallas=True)),
-            ("1024env+pallas", variant(base, num_envs=1024,
-                                       use_pallas=True)),
-        ]
     for name, cfg in variants:
         r = selfplay_bench.run(cfg, plies=4, warmup=1, repeats=2)
         print(f"{name:18s} steps/s={r['env_steps_per_s_per_chip']:8.1f} "

@@ -1,4 +1,4 @@
-"""Split self-play time into MCTS machinery vs net forward (run on TPU).
+"""Split self-play time into MCTS machinery vs net forward (run on the GPU).
 
 Usage: python benchmarks/profile_split.py
 Prints three lines: combined chunk, uniform-evaluator chunk (MCTS-only),
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from alphafive_tpu.config import get_preset
 from alphafive_tpu.env import vector
 from alphafive_tpu.models.evaluator import net_evaluator, uniform_evaluator
-from alphafive_tpu.models.resnet import PolicyValueNet, apply_eval
+from alphafive_tpu.models.resnet import apply_eval
 from alphafive_tpu.train import actor, learner
 
 PLIES = 4
@@ -59,7 +59,6 @@ def main():
               f"steps/s={steps / best:8.1f}", flush=True)
 
     # bare net forwards: sims * plies batched evals of [E, S, S, 4]
-    model = PolicyValueNet(cfg.env, cfg.net)
     x = jnp.zeros((cfg.train.num_envs, cfg.env.board_size,
                    cfg.env.board_size, 4), jnp.float32)
     n_evals = cfg.mcts.num_simulations * PLIES
@@ -69,7 +68,7 @@ def main():
         # acc feeds back into the input so XLA cannot hoist the forward
         # out of the loop as loop-invariant
         def body(i, acc):
-            logits, v = apply_eval(model, ts.params, ts.batch_stats,
+            logits, v = apply_eval(cfg.net, ts.params, ts.batch_stats,
                                    x + acc * 1e-20)
             return logits.sum() * 1e-20 + v.sum() * 1e-20
         return jax.lax.fori_loop(0, n_evals, body, 0.0)

@@ -5,12 +5,11 @@ learner steps, parallel/mesh.py) on meshes of 1..N devices with envs scaled
 proportionally (weak scaling) and reports per-device env-steps/s and the
 efficiency vs the 1-device run.
 
-On this machine only one real TPU chip is reachable, so the default run
-uses a virtual CPU mesh (xla_force_host_platform_device_count) — that
-validates the SPMD program's scaling *structure* (all collectives, sharding
-and donation compile and execute); the absolute numbers are CPU numbers.
-On a real pod slice the same harness measures true ICI scaling: run with
---platform tpu on every host (after jax.distributed.initialize).
+With --platform cpu the run uses a virtual CPU mesh
+(xla_force_host_platform_device_count) — that validates the SPMD program's
+scaling *structure* (all collectives, sharding and donation compile and
+execute); the absolute numbers are CPU numbers. On a GPU host the same
+harness measures real scaling over the host's GPUs.
 
 Usage: python benchmarks/scaling.py [--platform cpu] [--devices 1,2,4,8]
 """

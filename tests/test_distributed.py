@@ -28,7 +28,7 @@ def test_two_process_cpu_cluster(tmp_path):
     """A REAL 2-process jax.distributed cluster on CPU (round-4 verdict
     missing #3): explicit coordinator, global 4-device mesh, one train
     iteration whose gradient pmean crosses processes, a barrier that
-    measurably synchronizes, orbax multi-process checkpointing, and
+    measurably synchronizes, multi-process checkpointing, and
     primary-only metrics. This is the strongest BASELINE.json:10 (pod)
     evidence obtainable without real multi-chip hardware. Skips (not
     fails) on timeout: two extra JAX processes on a loaded 1-core
@@ -77,7 +77,12 @@ def test_two_process_cpu_cluster(tmp_path):
     # exactly one process (the primary) wrote metrics: one iter row total
     rows = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
     assert sum(1 for r in rows if r.get("kind") == "iter") == 1
-    # the multi-process checkpoint restores on a fresh single process
+    # the multi-process checkpoint (one shard file per process) restores
+    # on a fresh single process
     from alphafive_tpu.train import checkpoint as ckpt
     mgr = ckpt.make_manager(f"{tmp_path}/ckpt")
     assert mgr.latest_step() == 1
+    assert sorted(os.listdir(mgr.step_dir(1))) == [
+        "meta.json", "shards_0.npz", "shards_1.npz"]
+    ts, saved_cfg = ckpt.restore_train_state(mgr)
+    assert saved_cfg.name == "tiny_test" and int(ts.step) == 0

@@ -15,7 +15,7 @@ import pytest
 from alphafive_tpu.config import EnvConfig, MCTSConfig
 from alphafive_tpu.env.scalar import ScalarGomoku
 from alphafive_tpu.mcts import gumbel, reference
-from tests.test_mcts import (_int_value, random_midgame, to_env_state)
+from tests.helpers import _int_value, random_midgame, to_env_state
 
 
 # frozen evaluator with NON-ZERO logits (Gumbel scores live on g + logits)

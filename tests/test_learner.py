@@ -55,12 +55,10 @@ def test_loss_terms_zero_masked_value():
     pi = jnp.ones((b, cfg.env.num_actions)) / cfg.env.num_actions
     z = jnp.ones((b,))
     zv_none = jnp.zeros((b,))
-    from alphafive_tpu.models.resnet import PolicyValueNet
-    model = PolicyValueNet(cfg.env, cfg.net)
-    _, (_, aux) = learner.loss_fn(ts.params, ts.batch_stats, model,
+    _, (_, aux) = learner.loss_fn(ts.params, ts.batch_stats, cfg.net,
                                   (feats, pi, z, zv_none), cfg.train)
     assert float(aux["value_loss"]) == 0.0
-    _, (_, aux2) = learner.loss_fn(ts.params, ts.batch_stats, model,
+    _, (_, aux2) = learner.loss_fn(ts.params, ts.batch_stats, cfg.net,
                                    (feats, pi, z, jnp.ones((b,))),
                                    cfg.train)
     assert float(aux2["value_loss"]) > 0.0
@@ -78,7 +76,7 @@ def test_sgd_option_steps():
              jnp.ones((b, cfg.env.num_actions)) / cfg.env.num_actions,
              jnp.zeros((b,)), jnp.ones((b,)))
     ts2, aux = jax.jit(
-        lambda t: learner.train_step(cfg.env, cfg.net, cfg.train, t, batch)
+        lambda t: learner.train_step(cfg.net, cfg.train, t, batch)
     )(ts)
     assert int(ts2.step) == 1
     assert np.isfinite(float(aux["loss"]))
@@ -167,9 +165,7 @@ def test_adam_loss_excludes_l2_term():
     batch = (jnp.zeros((b, s, s, 4)),
              jnp.ones((b, cfg.env.num_actions)) / cfg.env.num_actions,
              jnp.zeros((b,)), jnp.ones((b,)))
-    from alphafive_tpu.models.resnet import PolicyValueNet
-    model = PolicyValueNet(cfg.env, cfg.net)
-    loss, (_, aux) = learner.loss_fn(ts.params, ts.batch_stats, model,
+    loss, (_, aux) = learner.loss_fn(ts.params, ts.batch_stats, cfg.net,
                                      batch, cfg.train)
     expect = (float(aux["policy_loss"])
               + cfg.train.value_loss_weight * float(aux["value_loss"]))

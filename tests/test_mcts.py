@@ -15,64 +15,8 @@ from alphafive_tpu.env import vector
 from alphafive_tpu.env.scalar import ScalarGomoku
 from alphafive_tpu.mcts import reference, search
 from alphafive_tpu.models.evaluator import uniform_evaluator
-
-
-# ---------------------------------------------------------------------------
-# A frozen evaluator computable bit-identically in NumPy and XLA:
-# integer arithmetic on the board, then one exact float division.
-# ---------------------------------------------------------------------------
-
-def _int_value(board_i32, size):
-    weights = (np.arange(size * size) % 5 - 2).astype(np.int64)
-    s = int(np.sum(board_i32.astype(np.int64) * weights))
-    return np.float32((s % 7) - 3) / np.float32(8)
-
-
-def np_eval(size):
-    def evaluate(board, to_play, last):
-        del to_play, last
-        return (np.zeros(size * size, np.float32),
-                _int_value(board.astype(np.int32), size))
-    return evaluate
-
-
-def jax_eval(size):
-    weights = jnp.asarray((np.arange(size * size) % 5 - 2).astype(np.int32))
-
-    def evaluate(board, to_play, last, key):
-        del to_play, last, key
-        s = jnp.sum(board.astype(jnp.int32) * weights[None, :], axis=-1)
-        v = ((s % 7) - 3).astype(jnp.float32) / jnp.float32(8)
-        return jnp.zeros((board.shape[0], size * size), jnp.float32), v
-    return evaluate
-
-
-def random_midgame(size, n_in_row, plies, seed):
-    for s in range(seed, seed + 50):  # retry seeds that end early
-        g = ScalarGomoku(size, n_in_row)
-        rng = np.random.default_rng(s)
-        for _ in range(plies):
-            la = g.legal_actions()
-            g.step(int(la[rng.integers(len(la))]))
-            if g.done:
-                break
-        if not g.done:
-            return g
-    raise AssertionError("no live midgame position found")
-
-
-def to_env_state(games):
-    size = games[0].size
-    return vector.EnvState(
-        board=jnp.asarray(np.stack([g.board.reshape(-1) for g in games])),
-        to_play=jnp.asarray(np.array([g.to_play for g in games], np.int8)),
-        last_move=jnp.asarray(np.array([g.last_move for g in games],
-                                       np.int32)),
-        move_count=jnp.asarray(np.array([g.move_count for g in games],
-                                        np.int32)),
-        done=jnp.zeros((len(games),), bool),
-        winner=jnp.zeros((len(games),), jnp.int8),
-    )
+from tests.helpers import (frozen_net_evaluator, jax_eval, np_eval,
+                           random_midgame, to_env_state)
 
 
 @pytest.mark.parametrize("size,n_in_row,sims,plies", [
@@ -202,7 +146,6 @@ def test_branch_cap_full_width_matches_exact(lb):
     search exactly, for both sequential and leaf-parallel passes."""
     import dataclasses
     from alphafive_tpu.env import vector as _v
-    from tests.test_pallas_select import frozen_net_evaluator
 
     env_cfg = EnvConfig(board_size=7, n_in_row=4)
     base = MCTSConfig(num_simulations=64, leaf_batch=lb)
@@ -325,7 +268,6 @@ def test_packed_int16_capped_close_to_f32():
     closely — same tolerance as the unpacked int16 test."""
     import dataclasses
     from alphafive_tpu.env import vector as _v
-    from tests.test_pallas_select import frozen_net_evaluator
 
     env_cfg = EnvConfig(board_size=7, n_in_row=4)
     base = MCTSConfig(num_simulations=64, leaf_batch=4, branch_cap=16)
@@ -361,7 +303,6 @@ def test_int16_value_sums_close_to_f32():
     import functools
     from alphafive_tpu.config import EnvConfig, MCTSConfig
     from alphafive_tpu.env import vector
-    from tests.test_pallas_select import frozen_net_evaluator
 
     env_cfg = EnvConfig(board_size=7, n_in_row=4)
     base = MCTSConfig(num_simulations=60)
@@ -399,7 +340,6 @@ def test_deferred_backup_bit_identical():
     import dataclasses
     from alphafive_tpu.env import vector as _v
     from alphafive_tpu.mcts.search_capped import run_mcts_capped
-    from tests.test_pallas_select import frozen_net_evaluator
 
     env_cfg = EnvConfig(board_size=9)
     ev = frozen_net_evaluator(env_cfg, jax.random.key(3))
@@ -426,3 +366,45 @@ def test_deferred_backup_bit_identical():
                                       np.asarray(rb.visits))
         np.testing.assert_array_equal(np.asarray(ra.root_value),
                                       np.asarray(rb.root_value))
+
+
+def _dot_precisions(jaxpr):
+    """(operand dtypes, precision) of every dot_general, sub-jaxprs too."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(([v.aval.dtype for v in eqn.invars],
+                        eqn.params["precision"]))
+        for p in eqn.params.values():
+            for sub in (p if isinstance(p, (list, tuple)) else [p]):
+                inner = getattr(sub, "jaxpr", sub)
+                if hasattr(inner, "eqns"):
+                    out.extend(_dot_precisions(inner))
+    return out
+
+
+def test_search_float_matmuls_ask_for_highest_precision():
+    """The capped search's float32 matrix products carry exact integers
+    (packed path ids, fixed-point values). A GPU runs default-precision
+    float32 matmuls in TF32, which rounds them and silently changes the
+    search, so every float dot in the production search configuration
+    (leaf-parallel, branch cap, packed int16 stats, deferred backup) must
+    ask for HIGHEST precision."""
+    env_cfg = EnvConfig(board_size=5, n_in_row=4)
+    mcts_cfg = MCTSConfig(num_simulations=16, leaf_batch=4, branch_cap=8,
+                          max_depth=8, prior_dtype="bfloat16",
+                          value_dtype="int16", backup_interval=2)
+    state = vector.init(env_cfg, 2)
+    # traced at the default precision a GPU run gets (the suite's own
+    # default is "highest")
+    with jax.default_matmul_precision("default"):
+        jaxpr = jax.make_jaxpr(functools.partial(
+            search.run_mcts, env_cfg, mcts_cfg, uniform_evaluator(env_cfg),
+            add_noise=False))(state, jax.random.key(0))
+    dots = _dot_precisions(jaxpr.jaxpr)
+    floats = [prec for dtypes, prec in dots
+              if any(jnp.issubdtype(d, jnp.floating) for d in dtypes)]
+    assert floats, dots  # the lookup einsums are there
+    highest = jax.lax.Precision.HIGHEST
+    for prec in floats:
+        assert prec is not None and all(p == highest for p in prec), prec

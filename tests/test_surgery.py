@@ -14,8 +14,8 @@ import pytest
 
 from alphafive_tpu.config import EnvConfig, NetConfig
 from alphafive_tpu.models import surgery
-from alphafive_tpu.models.resnet import (PolicyValueNet, apply_eval,
-                                         apply_train, init_variables)
+from alphafive_tpu.models.resnet import (apply_eval, apply_train,
+                                         init_variables)
 
 ENV = EnvConfig(board_size=7)
 NET = NetConfig(blocks=2, channels=8, value_hidden=16,
@@ -26,10 +26,9 @@ def _trained_ish(key):
     """Init + a few noisy train steps so BN stats/params are non-trivial."""
     variables = init_variables(ENV, NET, key)
     params, bs = variables["params"], variables["batch_stats"]
-    model = PolicyValueNet(ENV, NET)
     for i in range(2):
         x = jax.random.normal(jax.random.fold_in(key, i), (2, 7, 7, 4))
-        _, bs = apply_train(model, params, bs, x)
+        _, bs = apply_train(NET, params, bs, x)
     return {"params": params, "batch_stats": bs}
 
 
@@ -38,18 +37,17 @@ def src():
     return _trained_ish(jax.random.key(7))
 
 
-def _outputs(env, net, variables, x):
-    model = PolicyValueNet(env, net)
-    return apply_eval(model, variables["params"],
+def _outputs(net, variables, x):
+    return apply_eval(net, variables["params"],
                       variables["batch_stats"], x)
 
 
 def test_widen_preserves_function(src):
     wide = surgery.widen(src, 12, jax.random.key(1), noise=0.0)
     x = jax.random.normal(jax.random.key(2), (5, 7, 7, 4))
-    p0, v0 = _outputs(ENV, NET, src, x)
-    p1, v1 = _outputs(ENV, NetConfig(blocks=2, channels=12, value_hidden=16,
-                                     compute_dtype="float32"), wide, x)
+    p0, v0 = _outputs(NET, src, x)
+    p1, v1 = _outputs(NetConfig(blocks=2, channels=12, value_hidden=16,
+                                compute_dtype="float32"), wide, x)
     np.testing.assert_allclose(p1, p0, atol=2e-4)
     np.testing.assert_allclose(v1, v0, atol=2e-4)
 
@@ -68,9 +66,9 @@ def test_widen_noise_breaks_symmetry(src):
 def test_deepen_preserves_function_exactly(src):
     deep = surgery.deepen(src, 4, jax.random.key(3))
     x = jax.random.normal(jax.random.key(4), (5, 7, 7, 4))
-    p0, v0 = _outputs(ENV, NET, src, x)
-    p1, v1 = _outputs(ENV, NetConfig(blocks=4, channels=8, value_hidden=16,
-                                     compute_dtype="float32"), deep, x)
+    p0, v0 = _outputs(NET, src, x)
+    p1, v1 = _outputs(NetConfig(blocks=4, channels=8, value_hidden=16,
+                                compute_dtype="float32"), deep, x)
     np.testing.assert_array_equal(np.asarray(p1), np.asarray(p0))
     np.testing.assert_array_equal(np.asarray(v1), np.asarray(v0))
 
@@ -83,9 +81,9 @@ def test_deepen_identity_in_train_mode(src):
     net4 = NetConfig(blocks=4, channels=8, value_hidden=16,
                      compute_dtype="float32")
     x = jax.random.normal(jax.random.key(4), (5, 7, 7, 4))
-    (p1, v1), _ = apply_train(PolicyValueNet(ENV, net4), deep["params"],
+    (p1, v1), _ = apply_train(net4, deep["params"],
                               deep["batch_stats"], x)
-    (p0, v0), _ = apply_train(PolicyValueNet(ENV, NET), src["params"],
+    (p0, v0), _ = apply_train(NET, src["params"],
                               src["batch_stats"], x)
     np.testing.assert_allclose(np.asarray(p1), np.asarray(p0), atol=1e-5)
     np.testing.assert_allclose(np.asarray(v1), np.asarray(v0), atol=1e-5)
@@ -122,7 +120,7 @@ def test_transfer_end_to_end_matches_dst_tree(src):
     out = surgery.transfer(src, ENV, NET, dst_env, dst_net,
                            jax.random.key(6))
     x = jax.random.normal(jax.random.key(7), (2, 9, 9, 4))
-    p, v = _outputs(dst_env, dst_net, out, x)
+    p, v = _outputs(dst_net, out, x)
     assert p.shape == (2, 81) and np.isfinite(np.asarray(p)).all()
     assert np.isfinite(np.asarray(v)).all()
 

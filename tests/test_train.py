@@ -124,8 +124,7 @@ def test_learner_step_decreases_loss(tiny):
     pi = jax.nn.softmax(jax.random.normal(key, (b, a)))
     z = jnp.sign(jax.random.normal(key, (b,)))
     batch = (feats, pi, z, jnp.ones((b,)))
-    step = jax.jit(functools.partial(learner.train_step, cfg.env, cfg.net,
-                                     cfg.train))
+    step = jax.jit(functools.partial(learner.train_step, cfg.net, cfg.train))
     losses = []
     for i in range(40):
         ts, aux = step(ts, batch)
@@ -339,7 +338,7 @@ def test_smoke_9x9_preset_end_to_end(tmp_path):
     assert np.isfinite(iters[-1]["loss"])
 
 
-@pytest.mark.parametrize("preset", ["host_15x15", "pod_v5p16"])
+@pytest.mark.parametrize("preset", ["host_15x15", "multihost_15x15"])
 def test_multidevice_presets_compile_and_step(preset):
     """The BASELINE cfg 3/4 presets' SPMD wiring (data=4 / data=8 mesh,
     sharded envs+ring, replicated params, pmean learner) compiles and runs
@@ -375,7 +374,7 @@ def test_multidevice_presets_compile_and_step(preset):
 
 
 def test_lowsim_gumbel_preset_multidevice():
-    """lowsim_15x15 (the NORTH_STAR.md aggregate config: gumbel root,
+    """lowsim_15x15 (the aggregate-throughput config: gumbel root,
     16 sims) runs its full training iteration under the 8-device SPMD
     mesh at memory-reduced shape — the gumbel search path is otherwise
     only exercised single-device (dryrun_multichip uses the classic
@@ -451,51 +450,66 @@ def test_checkpoint_roundtrip(tiny, tmp_path):
                                   np.asarray(carry2.buffer.board))
 
 
-def test_checkpoint_restores_pre_lookahead_format(tiny, tmp_path):
-    """Pre-round-3 checkpoints lack TrainCarry.pending/has_pending; restore
-    must tolerate them (round-3 advisor finding: the train_retry.sh
-    --resume workflow would die on an orbax structure mismatch)."""
-    import orbax.checkpoint as ocp
-
+def _save_sharded_checkpoint(tiny, tmp_path, n=4):
+    """A tiny carry laid out over `n` devices, its replay boards filled
+    with position-dependent values, saved as step 5."""
     from alphafive_tpu.train import checkpoint as ckpt
     from alphafive_tpu.utils.elo import LadderState
 
     cfg = dataclasses.replace(
-        tiny, mesh=dataclasses.replace(tiny.mesh, data=1))
-    mesh = parallel.make_mesh(1)
-    carry = parallel.init_carry(cfg, jax.random.key(0), mesh)
+        tiny, mesh=dataclasses.replace(tiny.mesh, data=n))
+    carry = parallel.init_carry(cfg, jax.random.key(0), parallel.make_mesh(n))
+    board = carry.buffer.board
+    values = (np.arange(board.size) // 7 % 100).reshape(board.shape)
+    carry = carry.replace(buffer=carry.buffer.replace(board=jax.device_put(
+        values.astype(board.dtype), board.sharding)))
+    mgr = ckpt.make_manager(str(tmp_path / "ckpt"))
+    ckpt.save(mgr, 5, carry, jax.random.key(2), cfg, LadderState())
+    return mgr, carry
 
-    # hand-write an OLD-format checkpoint: carry as a dict WITHOUT the
-    # round-3 staging fields (this is exactly the saved structure of a
-    # pre-lookahead TrainCarry — orbax keys pytrees by field name)
-    mgr = ckpt.make_manager(str(tmp_path / "old"))
-    import dataclasses as dc
-    import json as js
-    old_state = {
-        "carry": {"train_state": carry.train_state,
-                  "env_state": carry.env_state,
-                  "buffer": carry.buffer},
-        "key": jax.random.key_data(jax.random.key(5)),
-    }
-    meta = {"config": cfg.to_json(),
-            "ladder": js.dumps(dc.asdict(LadderState(level=3))),
-            "iteration": 11}
-    mgr.save(11, args=ocp.args.Composite(
-        state=ocp.args.StandardSave(old_state),
-        meta=ocp.args.JsonSave(meta)))
-    mgr.wait_until_finished()
 
-    carry0 = parallel.init_carry(cfg, jax.random.key(123), mesh)
-    it2, carry2, key2, cfg2, ladder2 = ckpt.restore(mgr, carry0)
-    assert it2 == 11 and ladder2.level == 3
-    for a, b in zip(jax.tree.leaves(carry.train_state.params),
-                    jax.tree.leaves(carry2.train_state.params)):
+@pytest.mark.parametrize("layout", ["same", "one_device"])
+def test_checkpoint_restores_sharded_carry(tiny, tmp_path, layout):
+    """A carry saved from 4 devices restores leaf-for-leaf, onto the same
+    sharding or onto one device (every block built from several pieces)."""
+    from alphafive_tpu.train import checkpoint as ckpt
+
+    mgr, carry = _save_sharded_checkpoint(tiny, tmp_path)
+    like = carry if layout == "same" else jax.device_put(
+        carry, jax.devices()[0])
+    _, back, _, _, _ = ckpt.restore(mgr, like)
+    for a, l, b in zip(jax.tree.leaves(carry), jax.tree.leaves(like),
+                       jax.tree.leaves(back)):
+        assert b.sharding == l.sharding
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    # new fields default to the init-carry values: gated-off staging slot
-    assert not bool(carry2.has_pending[0])
-    np.testing.assert_array_equal(
-        np.asarray(jax.random.key_data(key2)),
-        np.asarray(jax.random.key_data(jax.random.key(5))))
+
+
+def test_checkpoint_restore_fails_on_missing_shard_file(tiny, tmp_path):
+    """Pieces split over two process files restore; with one file gone the
+    restore raises instead of loading uninitialised memory."""
+    import os
+
+    from alphafive_tpu.train import checkpoint as ckpt
+
+    mgr, carry = _save_sharded_checkpoint(tiny, tmp_path)
+    step = mgr.step_dir(5)
+    with np.load(os.path.join(step, "shards_0.npz")) as f:
+        pieces = {k: f[k] for k in f.files}
+    # pieces that do not start at the origin go to a second "process"
+    second = {k: v for k, v in pieces.items()
+              if any(not s.startswith("0:") for s in
+                     k.partition("@")[2].split(",") if s)}
+    assert second
+    np.savez(os.path.join(step, "shards_0.npz"),
+             **{k: v for k, v in pieces.items() if k not in second})
+    np.savez(os.path.join(step, "shards_1.npz"), **second)
+    _, back, _, _, _ = ckpt.restore(mgr, carry)
+    np.testing.assert_array_equal(np.asarray(carry.buffer.board),
+                                  np.asarray(back.buffer.board))
+
+    os.remove(os.path.join(step, "shards_1.npz"))
+    with pytest.raises(ValueError, match="a shard file is missing"):
+        ckpt.restore(mgr, carry)
 
 
 def test_graft_entry_single_and_multichip():
@@ -707,7 +721,7 @@ def test_best_gate_switches_to_net_vs_net(tiny, tmp_path, monkeypatch):
 
     # eval 1: ladder maxed+swept but no best yet -> Elo path promotes and
     # exports the lightweight best model
-    assert (tmp_path / "best_model" / "model.msgpack").exists()
+    assert (tmp_path / "best_model" / "model.npz").exists()
     rows = [json.loads(l) for l in open(tmp_path / "metrics.jsonl")]
     kinds = [r["kind"] for r in rows]
     assert "best" in kinds
